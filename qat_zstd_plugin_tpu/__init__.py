@@ -1,11 +1,11 @@
-"""qat_zstd_plugin_tpu — a TPU-native zstd-format codec.
+"""qat_zstd_plugin_tpu — an accelerator-native zstd-format codec.
 
-A from-scratch re-imagining of intel/QAT-ZSTD-Plugin for TPU hardware:
-where the reference offloads LZ77 match finding of 128 KiB blocks to Intel
-QAT accelerators and leaves entropy coding to libzstd, this framework runs
-match finding as batched XLA/Pallas programs on TPU and owns the complete
-zstd frame (FSE/Huffman entropy coding included). Stock zstd >= 1.5.4
-decodes every frame bit-exactly.
+A from-scratch re-imagining of intel/QAT-ZSTD-Plugin: where the reference
+offloads LZ77 match finding of 128 KiB blocks to Intel QAT accelerators
+and leaves entropy coding to libzstd, this framework runs match finding
+as batched XLA/Pallas programs on a GPU and owns the complete zstd frame
+(FSE/Huffman entropy coding included). Stock zstd >= 1.5.4 decodes every
+frame bit-exactly.
 
 Public API parity with the reference's five functions
 (src/qatseqprod.h:72-151):
@@ -55,7 +55,7 @@ class SeqProdState:
                  block_size: int = BLOCK_SIZE_MAX,
                  use_device: bool = False):
         self.level = level
-        # use_device=True routes producer blocks through the TPU match
+        # use_device=True routes producer blocks through the device match
         # pipeline (batch=1 per call — the producer ABI is per-block);
         # False uses the native CPU matcher (the soft path).
         self.use_device = use_device
@@ -95,7 +95,7 @@ def sequence_producer(state: SeqProdState, block: bytes | np.ndarray,
         from .golden import codec as golden_codec
         seqs = None
         if state.use_device and n >= 64:
-            # TPU route: one-block batch through the device match pipeline
+            # Device route: one-block batch through the device match pipeline
             # (pad to the codec block shape; the pipeline masks by length),
             # then native extension recovers full match lengths from the
             # device's LCP-capped candidates.
@@ -134,7 +134,7 @@ def compress_via_libzstd(data: bytes, level: int = 1,
     """The reference's exact deployment shape: stock libzstd compresses,
     calling our registered sequence producer per block (fallback enabled),
     as in test/test.c:103-116. use_device=True sends blocks through the
-    TPU match pipeline."""
+    device match pipeline."""
     from . import oracle
     st = create_seqprod_state(level=level, use_device=use_device)
     try:
@@ -179,8 +179,8 @@ def compress(data: bytes | np.ndarray, level: int = 1,
              use_device: bool | None = None, batch: int = 8) -> bytes:
     """Compress to a complete zstd frame.
 
-    use_device=None auto-selects: device pipeline when a non-CPU backend is
-    available, golden CPU path otherwise (the soft-fallback posture of the
+    use_device=None auto-selects: device pipeline when a GPU is available,
+    the software path otherwise (the soft-fallback posture of the
     reference, README.md:197-198)."""
     if use_device is None:
         st = start_device()

@@ -9,7 +9,7 @@ same state machine in reverse.
 
 The reference plugin never implements FSE (libzstd did); this module exists
 because our framework owns entropy coding. It is the golden model that the
-C++ native runtime (native/qz_entropy.cc) and the TPU packers are
+C++ native runtime (native/qz_entropy.cc) and the device packers are
 differential-tested against.
 """
 
@@ -47,7 +47,7 @@ def spread_symbols(norm: list[int], accuracy_log: int) -> np.ndarray:
 
 @dataclass
 class DecodeTable:
-    """FSE decode table — used by golden decode tests and the TPU verifier."""
+    """FSE decode table — used by golden decode tests and the device verifier."""
     accuracy_log: int
     symbol: np.ndarray      # (size,) int32
     nb_bits: np.ndarray     # (size,) int32

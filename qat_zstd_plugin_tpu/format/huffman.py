@@ -10,7 +10,7 @@ zstd Huffman specifics owned here:
   regenerates forward; 1-stream and 4-stream (jump table) layouts.
 
 The reference plugin left all of this to libzstd; this golden model is the
-spec for the C++ native encoder and the TPU packers.
+spec for the C++ native encoder and the device packers.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The QAT accelerator emits LZ4s (an LZ4 variant with 3-byte minimum match);
 the reference's CPU hot loop decodes it into ZSTD_Sequence entries
-(src/qatseqprod.c:1013-1091). Our TPU pipeline emits sequences directly, so
+(src/qatseqprod.c:1013-1091). Our device pipeline emits sequences directly, so
 this decoder exists as the *format contract spec* (SURVEY §3.3) — it pins
 the exact semantics our sequence IR mirrors and serves as a golden model
 for tests and for interop with LZ4s-producing hardware:

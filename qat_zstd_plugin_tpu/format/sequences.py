@@ -201,7 +201,7 @@ def encode_sequences(lit_lengths: np.ndarray, offsets: np.ndarray,
     (>=1); match_lengths[i]: match length (>=3).
 
     use_repcodes defaults to on, except in force_predefined (device-parity)
-    mode where the on-TPU kernel's explicit-offset stream is mirrored.
+    mode where the on-device encoder's explicit-offset stream is mirrored.
     """
     n = len(lit_lengths)
     out = bytearray(nbseq_header(n))
@@ -224,7 +224,7 @@ def encode_sequences(lit_lengths: np.ndarray, offsets: np.ndarray,
 
     if force_predefined:
         # Device-parity mode: Predefined_Mode for all three streams (the
-        # on-TPU encoder's static-table trade; used by differential tests).
+        # on-device encoder's static-table trade; used by differential tests).
         ll_plan = _TablePlan(MODE_PREDEFINED, b"", _predefined("ll"), 0.0)
         of_plan = _TablePlan(MODE_PREDEFINED, b"", _predefined("of"), 0.0)
         ml_plan = _TablePlan(MODE_PREDEFINED, b"", _predefined("ml"), 0.0)

@@ -5,7 +5,7 @@ bytes. The reference plugin emits `ZSTD_Sequence{offset, litLength,
 matchLength}` triples and lets libzstd map them to codes (reference:
 src/qatseqprod.h:85-95 producer contract); we own that mapping.
 
-All tables are mirrored as NumPy arrays for the vectorized/TPU paths.
+All tables are mirrored as NumPy arrays for the vectorized/device paths.
 """
 
 from __future__ import annotations

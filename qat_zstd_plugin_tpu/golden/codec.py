@@ -3,7 +3,7 @@
 This is the framework's software-fallback path — the role libzstd's internal
 compressor plays when the reference plugin's producer errors out
 (`ZSTD_c_enableSeqProducerFallback`, README.md:197-198, test/test.c:109) —
-and the correctness spec for the TPU pipeline.
+and the correctness spec for the device pipeline.
 
 Levels 1-12 mirror the reference's supported range
 (src/qatseqprod.c:86-87, 1132-1137): higher level = deeper chain search +

@@ -1,6 +1,6 @@
 """Golden-model LZ77 match finder (CPU, exact, slow).
 
-This is the correctness spec the TPU kernels are tested against — the role
+This is the correctness spec the device pipeline is tested against — the role
 stock zstd's internal match finder plays for the reference plugin (its
 software fallback, README.md:197-198). Classic greedy hash-chain search:
 

@@ -3,7 +3,7 @@
 // The fast-path implementation of the format/ golden model (bit-compatible
 // by construction, differentially tested from Python). This plays the role
 // libzstd's entropy stage plays for the reference plugin (the reference
-// emits sequences and lets libzstd do FSE/Huffman; our TPU pipeline emits
+// emits sequences and lets libzstd do FSE/Huffman; our device pipeline emits
 // sequences and this runtime finishes the frame), plus a complete software
 // fallback compressor (hash-chain matcher) mirroring the reference's
 // libzstd soft-fallback posture (README.md:197-198).
@@ -2184,7 +2184,7 @@ uint64_t qz_xxh64_digest(const QzXxhState* s) {
 
 size_t qz_xxh64_state_size(void) { return sizeof(QzXxhState); }
 
-// Block body from externally produced sequences (e.g. the TPU pipeline).
+// Block body from externally produced sequences (e.g. the device pipeline).
 // Returns body size, or 0 if not encodable/beneficial (caller emits raw).
 size_t qz_block_body(const uint8_t* block, size_t block_len,
                      const uint32_t* lit_lens, const uint32_t* offsets,
@@ -2204,7 +2204,7 @@ size_t qz_block_body(const uint8_t* block, size_t block_len,
 
 // Extend device-produced matches with real byte comparisons.
 //
-// The TPU pipeline caps sort-derived match lengths at 16 bytes (carried
+// The device pipeline caps sort-derived match lengths at 16 bytes (carried
 // content words); this pass re-extends each match to its true length and
 // re-parses the tail: consumed sequences are trimmed or dropped (front-
 // trimming a match is always valid — the source only moves forward).
@@ -2722,7 +2722,7 @@ size_t qz_extend_sequences(const uint8_t* base, size_t ctx_len, size_t n,
 // Block body assembly around a device-produced Sequences_Section: this
 // host side only gathers/encodes the literals section and concatenates
 // the accelerator's section bytes (the hybrid entropy split: literals on
-// host, sequence FSE on TPU). Returns body size or 0.
+// host, sequence FSE on the device). Returns body size or 0.
 size_t qz_block_body_external_seqsec(
     const uint8_t* block, size_t block_len, const uint32_t* lit_lens,
     const uint32_t* match_lens, size_t nseq, uint32_t last_literals,

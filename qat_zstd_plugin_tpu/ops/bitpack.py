@@ -1,9 +1,9 @@
 """Device-side variable-length bit packing — sorts and scans only.
 
-The missing primitive for on-TPU entropy coding is emitting a *continuous
-LSB-first bitstream* from per-item (value, nbits) pairs when nbits varies
-per item: every item lands at an arbitrary bit offset, which looks like a
-scatter — and TPU scatters run at ~27M updates/s (measured), useless.
+The missing primitive for on-device entropy coding is emitting a
+*continuous LSB-first bitstream* from per-item (value, nbits) pairs when
+nbits varies per item: every item lands at an arbitrary bit offset, which
+looks like a scatter with colliding targets.
 
 This module reformulates packing as pure vector algebra:
 

@@ -1,16 +1,14 @@
-"""On-TPU FSE sequence-section encoding (predefined tables).
+"""On-device FSE sequence-section encoding.
 
 This moves the reference's libzstd-owned sequence entropy stage onto the
 accelerator. Design constraints and answers:
 
-* FSE is a sequential state machine -> batch-SIMD Pallas kernel with the
-  block batch on lanes (the parse-kernel pattern): each step encodes one
-  sequence for every block at once.
-* Symbol-dependent table values (delta_nb_bits / delta_find_state /
-  extra-bit fields) are pure functions of the codes -> precomputed in XLA
-  as (S, B) arrays, so the kernel's only lookups are the state-dependent
-  next-state tables (<=64 entries, one-hot compare-reduce against a
-  VMEM-resident constant input).
+* FSE is a sequential state machine -> a ``lax.scan`` over steps with the
+  block batch as the vector axis: each step encodes one sequence for
+  every block at once.
+* Symbol-dependent extra-bit fields are pure functions of the codes ->
+  precomputed as (S, B) arrays; the per-step lookups are into the small
+  per-lane state tables (<=64 entries, one-hot compare-reduce).
 * Encoding runs over sequences in reverse; per-block reversal of the code
   arrays is one small sort (sorting is this codec's scatter).
 * Bit emission: each step produces one state-bits item and one extras
@@ -28,13 +26,9 @@ disabled (byte-identical sections).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..format import fse, tables
 from . import bitconcat, bitpack
@@ -96,143 +90,65 @@ def _codes(ll, ml, ofv):
             ll_extra, ml_extra, of_extra)
 
 
-# ---------------------------------------------------------------- kernel
+# ------------------------------------------------------- state machine
 
 
-def _make_state_kernel(S: int):
-    """Sequential FSE state machine over reversed sequences.
+def _lookup(tbl: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """Per-lane table lookup: tbl (K, B), idx (B,) -> (B,); an index
+    outside [0, K) reads 0 (one-hot compare-reduce)."""
+    k = tbl.shape[0]
+    oh = jnp.arange(k, dtype=jnp.int32)[:, None] == idx[None, :]
+    return jnp.sum(jnp.where(oh, tbl, 0), axis=0).astype(jnp.int32)
 
-    Grid: (S // CHUNK,) column chunks; per-lane states persist in scratch.
-    Inputs per chunk (rows = steps j, lanes = blocks):
-      c_{ll,of,ml}: symbol codes for the seq encoded at step j (reversed
-        order; j=0 row feeds only the init path)
-      per-lane tables (rows = symbol/state, lanes = blocks):
-        dnb/dfs (64|32|64, B) symbol constants, st (64|32|64, B) state
-        transition tables — per-block CONTENT (custom-table mode builds
-        these per block; predefined mode broadcasts the static ones)
-      nseq: (1, B) per-lane sequence counts
-    Outputs: state-item lo and nbits per step, plus slots for the flush
-      item at j == nseq.
+
+@jax.jit
+def _run_state_machine(code_rows, lane_tables, inits, nseq):
+    """Sequential FSE state machine over reversed sequences, blocks as
+    the vector axis: one ``lax.scan`` step encodes one sequence for every
+    block at once.
+
+    code_rows: 3 x (S+1, B) reversed symbol codes (row j = the sequence
+      encoded at step j; row 0 feeds only the init path).
+    lane_tables: per stream (dnb (K, B), dfs (K, B), st (size, B)) —
+      per-block CONTENT (custom-table mode builds these per block;
+      predefined mode broadcasts the static ones).
+    inits: 3 x (B,) initial states; nseq: (B,) per-block sequence counts.
+    Returns (lo, nb): (S+1, B) state-item bits and bit counts per step,
+    with the flush item at j == nseq.
     """
+    (dl, fl, tl), (do, fo, to), (dm, fm, tm) = lane_tables
 
-    def kernel(c_ll, c_of, c_ml,
-               dnb_ll, dfs_ll, st_ll, dnb_of, dfs_of, st_of,
-               dnb_ml, dfs_ml, st_ml, nseq_ref,
-               init_ll, init_of, init_ml,
-               out_lo, out_nb, states_scr):
-        step = pl.program_id(0)
-        chunk = c_ll.shape[0]
-        B = c_ll.shape[1]
+    def step(states, xs):
+        j, c_ll, c_of, c_ml = xs
+        s_ll, s_of, s_ml = states
+        active = (j >= 1) & (j < nseq)
+        flush = j == nseq
+        # Encode order per step: OF state bits, ML, LL.
+        nb_of = jnp.where(active, (s_of + _lookup(do, c_of)) >> 16, 0)
+        b_of = s_of & ((1 << nb_of) - 1)
+        n_of = _lookup(to, (s_of >> nb_of) + _lookup(fo, c_of))
+        nb_ml = jnp.where(active, (s_ml + _lookup(dm, c_ml)) >> 16, 0)
+        b_ml = s_ml & ((1 << nb_ml) - 1)
+        n_ml = _lookup(tm, (s_ml >> nb_ml) + _lookup(fm, c_ml))
+        nb_ll = jnp.where(active, (s_ll + _lookup(dl, c_ll)) >> 16, 0)
+        b_ll = s_ll & ((1 << nb_ll) - 1)
+        n_ll = _lookup(tl, (s_ll >> nb_ll) + _lookup(fl, c_ll))
+        new = (jnp.where(active, n_ll, s_ll), jnp.where(active, n_of, s_of),
+               jnp.where(active, n_ml, s_ml))
+        # Item value: of | ml << nb_of | ll << (nb_of + nb_ml); the flush
+        # item instead writes ml(6) | of(5)<<6 | ll(6)<<11.
+        enc_lo = b_of | (b_ml << nb_of) | (b_ll << (nb_of + nb_ml))
+        fl_lo = (s_ml & 63) | ((s_of & 31) << 6) | ((s_ll & 63) << 11)
+        lo = jnp.where(active, enc_lo, jnp.where(flush, fl_lo, 0))
+        nb = jnp.where(active, nb_of + nb_ml + nb_ll,
+                       jnp.where(flush, 6 + 5 + 6, 0))
+        return new, (lo, nb)
 
-        @pl.when(step == 0)
-        def _():
-            states_scr[0, :] = init_ll[0, :]
-            states_scr[1, :] = init_of[0, :]
-            states_scr[2, :] = init_ml[0, :]
-
-        nseq = nseq_ref[0, :]
-        tl = st_ll[...]
-        to = st_of[...]
-        tm = st_ml[...]
-        dl, fl = dnb_ll[...], dfs_ll[...]
-        do, fo = dnb_of[...], dfs_of[...]
-        dm, fm = dnb_ml[...], dfs_ml[...]
-
-        def lookup(tbl, idx, k):
-            oh = jax.lax.broadcasted_iota(jnp.int32, (k, B), 0) \
-                == idx[None, :]
-            return jnp.sum(jnp.where(oh, tbl, 0), axis=0).astype(jnp.int32)
-
-        def body(i, _):
-            j = step * chunk + i
-            s_ll = states_scr[0, :]
-            s_of = states_scr[1, :]
-            s_ml = states_scr[2, :]
-            active = (j >= 1) & (j < nseq)
-            flush = j == nseq
-
-            # Per-lane symbol constants via in-kernel one-hot lookups.
-            dnb_of_i = lookup(do, c_of[i, :], 32)
-            dfs_of_i = lookup(fo, c_of[i, :], 32)
-            dnb_ml_i = lookup(dm, c_ml[i, :], 64)
-            dfs_ml_i = lookup(fm, c_ml[i, :], 64)
-            dnb_ll_i = lookup(dl, c_ll[i, :], 64)
-            dfs_ll_i = lookup(fl, c_ll[i, :], 64)
-
-            # Encode order per step: OF state bits, ML, LL.
-            nb_of = jnp.where(active, (s_of + dnb_of_i) >> 16, 0)
-            b_of = s_of & ((1 << nb_of) - 1)
-            n_of = lookup(to, (s_of >> nb_of) + dfs_of_i, 32)
-            nb_ml = jnp.where(active, (s_ml + dnb_ml_i) >> 16, 0)
-            b_ml = s_ml & ((1 << nb_ml) - 1)
-            n_ml = lookup(tm, (s_ml >> nb_ml) + dfs_ml_i, 64)
-            nb_ll = jnp.where(active, (s_ll + dnb_ll_i) >> 16, 0)
-            b_ll = s_ll & ((1 << nb_ll) - 1)
-            n_ll = lookup(tl, (s_ll >> nb_ll) + dfs_ll_i, 64)
-
-            states_scr[0, :] = jnp.where(active, n_ll, s_ll)
-            states_scr[1, :] = jnp.where(active, n_of, s_of)
-            states_scr[2, :] = jnp.where(active, n_ml, s_ml)
-
-            # Item value: of | ml << nb_of | ll << (nb_of + nb_ml); the
-            # flush item instead writes ml(6) | of(5)<<6 | ll(6)<<11.
-            enc_lo = (b_of | (b_ml << nb_of) | (b_ll << (nb_of + nb_ml)))
-            enc_nb = nb_of + nb_ml + nb_ll
-            fl_lo = ((s_ml & 63) | ((s_of & 31) << 6) | ((s_ll & 63) << 11))
-            fl_nb = 6 + 5 + 6
-            lo = jnp.where(active, enc_lo, jnp.where(flush, fl_lo, 0))
-            nb = jnp.where(active, enc_nb, jnp.where(flush, fl_nb, 0))
-            out_lo[i, :] = lo
-            out_nb[i, :] = nb
-            return 0
-
-        jax.lax.fori_loop(0, chunk, body, 0)
-
-    return kernel
-
-
-CHUNK = 512
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _run_state_kernel(code_rows, lane_tables, inits, nseq,
-                      interpret: bool | None = None):
-    """code_rows: 3 x (S+1, B) reversed code arrays; lane_tables: per
-    stream (dnb (K,B), dfs (K,B), st (size,B)); inits: 3 x (1, B)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    S1, B = code_rows[0].shape  # S+1 rows (room for the flush step)
-    chunk = min(CHUNK, S1)
-    pad = (-S1) % chunk
-    if pad:
-        code_rows = [jnp.pad(a, ((0, pad), (0, 0))) for a in code_rows]
-        S1 += pad
-    grid = (S1 // chunk,)
-    row_spec = pl.BlockSpec((chunk, B), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    def tbl_spec(rows):
-        return pl.BlockSpec((rows, B), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-
-    one_spec = pl.BlockSpec((1, B), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    tbl_args = []
-    tbl_specs = []
-    for (dnb, dfs, st) in lane_tables:
-        for a in (dnb, dfs, st):
-            tbl_args.append(a)
-            tbl_specs.append(tbl_spec(a.shape[0]))
-    out = pl.pallas_call(
-        _make_state_kernel(S1),
-        grid=grid,
-        in_specs=[row_spec] * 3 + tbl_specs + [one_spec] * 4,
-        out_specs=[row_spec, row_spec],
-        out_shape=[jax.ShapeDtypeStruct((S1, B), jnp.int32)] * 2,
-        scratch_shapes=[pltpu.VMEM((3, B), jnp.int32)],
-        interpret=interpret,
-    )(*code_rows, *tbl_args, nseq, *inits)
-    return out
+    S1 = code_rows[0].shape[0]
+    _, (lo, nb) = jax.lax.scan(
+        step, tuple(inits),
+        (jnp.arange(S1, dtype=jnp.int32), *code_rows))
+    return lo, nb
 
 
 def _init_state_lane(dnb_tbl: jnp.ndarray, dfs_tbl: jnp.ndarray,
@@ -328,16 +244,14 @@ def encode_sequence_sections(lit_len: jnp.ndarray, offset: jnp.ndarray,
         a = jnp.concatenate([a, jnp.zeros((B, 1), jnp.int32)], axis=1)
         return a.T
 
-    out_lo, out_nb = _run_state_kernel(
+    out_lo, out_nb = _run_state_machine(
         [to_rows(rll_c), to_rows(rof_c), to_rows(rml_c)],
         [tuple(a.T for a in tb_ll), tuple(a.T for a in tb_of),
          tuple(a.T for a in tb_ml)],
-        [init_ll.reshape(1, B), init_of.reshape(1, B),
-         init_ml.reshape(1, B)],
-        nseq.reshape(1, B).astype(jnp.int32))
+        [init_ll, init_of, init_ml], nseq.astype(jnp.int32))
     S1 = S + 1
-    state_lo = out_lo[:S1].T   # (B, S+1)
-    state_nb = out_nb[:S1].T
+    state_lo = out_lo.T   # (B, S+1)
+    state_nb = out_nb.T
 
     # Extras items: step j extras come from reversed row j (j < nseq).
     # 64-bit value emulated in two int32 words (x64 is disabled):

@@ -7,7 +7,7 @@ materializes spread/state tables — so the accelerator emits sequence
 sections with *content-adapted* tables instead of the predefined ones
 (~5-7 ratio points on typical data; SURVEY §7.4 / VERDICT #4).
 
-Design choices that keep this TPU-friendly:
+Design choices that keep this batch-friendly (static shapes):
 
 * Accuracy logs are fixed to the predefined values (LL 6, OF 5, ML 6):
   table sizes and flush widths match the predefined path exactly, so the

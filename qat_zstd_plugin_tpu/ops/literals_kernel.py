@@ -4,9 +4,9 @@ stage off the host).
 Flow per batch, all shape-static:
 
 1. literal mask from the parse: a position is a literal iff no chosen
-   match covers it — running-max-of-match-ends by shift doubling in a
-   Pallas kernel, fused with key building: key = (pos << 8 | byte) for
-   literals, sentinel otherwise.
+   match covers it — running-max-of-match-ends by shift doubling, fused
+   with key building: key = (pos << 8 | byte) for literals, sentinel
+   otherwise.
 2. one single-word sort compacts the literal bytes in position order.
 3. byte histogram + per-block canonical Huffman tables
    (ops/huffman_tables.py).
@@ -23,124 +23,49 @@ the ok flag and the host encodes from block bytes as before).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import bitconcat, bitpack, huffman_tables
-from .glue_kernels import _CP, _rows, _shl, _shr
+from .glue_kernels import _shr
 
 SENT = 0xFFFFFFFF  # sentinel key (python int: folds as immediate)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
+@jax.jit
 def literal_keys(blocks: jnp.ndarray, lengths: jnp.ndarray,
-                 chosen: jnp.ndarray, mlen: jnp.ndarray,
-                 interpret: bool | None = None) -> jnp.ndarray:
+                 chosen: jnp.ndarray, mlen: jnp.ndarray) -> jnp.ndarray:
     """(B, N) u32: (pos << 8 | byte) at literal positions, sentinel
     elsewhere. Literal = not covered by any chosen match (match lengths
     <= 16383, so 14 doubling steps bound the running end-max)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     B, N = blocks.shape
-    rows = _rows(B)
-
-    def kernel(x_ref, ln_ref, ch_ref, ml_ref, out_ref):
-        gp = jax.lax.broadcasted_iota(jnp.int32, (rows, N), 1)
-        blen = ln_ref[...][:, :1]
-        ch = ch_ref[...] != 0
-        ends = jnp.where(ch, gp + ml_ref[...], 0)
-        step = 1
-        for _ in range(14):
-            ends = jnp.maximum(ends, _shr(ends, step, 0, gp))
-            step *= 2
-        covered = ends > gp
-        is_lit = (~covered) & (gp < blen)
-        x = x_ref[...].astype(jnp.uint32)
-        key = (gp.astype(jnp.uint32) << 8) | x
-        out_ref[...] = jnp.where(is_lit, key, jnp.uint32(SENT))
-
-    spec = pl.BlockSpec((rows, N), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    len_spec = pl.BlockSpec((rows, 1), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(B // rows,),
-        in_specs=[spec, len_spec, spec, spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct((B, N), jnp.uint32),
-        compiler_params=_CP,
-        interpret=interpret,
-    )(blocks, lengths.reshape(B, 1).astype(jnp.int32),
-      chosen.astype(jnp.int32), mlen)
+    gp = jax.lax.broadcasted_iota(jnp.int32, (B, N), 1)
+    blen = lengths.astype(jnp.int32)[:, None]
+    ends = jnp.where(chosen != 0, gp + mlen, 0)
+    step = 1
+    for _ in range(14):
+        ends = jnp.maximum(ends, _shr(ends, step, 0))
+        step *= 2
+    is_lit = (ends <= gp) & (gp < blen)
+    key = (gp.astype(jnp.uint32) << 8) | blocks.astype(jnp.uint32)
+    return jnp.where(is_lit, key, jnp.uint32(SENT))
 
 
-_HIST_CHUNK = 512
-
-
-def _chunk_for(n: int) -> int:
-    c = _HIST_CHUNK
-    while n % c:
-        c //= 2
-    return max(c, 1)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def byte_hist(sk: jnp.ndarray, interpret: bool | None = None
-              ) -> jnp.ndarray:
+@jax.jit
+def byte_hist(sk: jnp.ndarray) -> jnp.ndarray:
     """(B, N) u32 literal keys (byte in bits 0-7, 0xFFFFFFFF = empty)
-    -> (B, 256) int32 byte histogram.
-
-    A naive XLA compare-reduce materializes a (B, N, 256) one-hot —
-    gigabytes at production shapes and a fused-compile blow-up (measured:
-    the device-entropy pipeline hung >80 min in it). This kernel keeps
-    the one-hot VMEM-resident per chunk and accumulates in a fori_loop.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    B, N = sk.shape
-    rows = _rows(B)
-    C = _chunk_for(N)
-
-    def kernel(x_ref, out_ref):
-        def body(i, acc):
-            ch = x_ref[:, pl.ds(i * C, C)]
-            # Validity folds into the byte value (empty -> 256, which
-            # matches no symbol): Mosaic only supports minor-dim
-            # insertion on 32-bit types, so the rank change happens on
-            # the int32 byte, never on an i1 mask.
-            byte = jnp.where(ch != jnp.uint32(SENT),
-                             (ch & jnp.uint32(0xFF)).astype(jnp.int32),
-                             jnp.int32(256))
-            sym = jax.lax.broadcasted_iota(jnp.int32, (rows, C, 256), 2)
-            oh = byte[:, :, None] == sym
-            return acc + oh.astype(jnp.int32).sum(axis=1)
-
-        out_ref[...] = jax.lax.fori_loop(
-            0, N // C, body, jnp.zeros((rows, 256), jnp.int32))
-
-    return pl.pallas_call(
-        kernel,
-        grid=(B // rows,),
-        in_specs=[pl.BlockSpec((rows, N), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((rows, 256), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, 256), jnp.int32),
-        compiler_params=_CP,
-        interpret=interpret,
-    )(sk)
+    -> (B, 256) int32 byte histogram (a per-row scatter-add; empty keys
+    land in a discarded 257th bin)."""
+    byte = jnp.where(sk != jnp.uint32(SENT),
+                     (sk & jnp.uint32(0xFF)).astype(jnp.int32), 256)
+    hist = jax.vmap(lambda b: jnp.bincount(b, length=257))(byte)
+    return hist[:, :256].astype(jnp.int32)
 
 
 def encode_literals_device(blocks: jnp.ndarray, lengths: jnp.ndarray,
                            chosen: jnp.ndarray, mlen: jnp.ndarray,
-                           max_words: int | None = None,
-                           interpret: bool | None = None) -> dict:
+                           max_words: int | None = None) -> dict:
     """Per-block 4-stream Huffman-coded literals.
 
     Returns dict of device arrays:
@@ -152,8 +77,7 @@ def encode_literals_device(blocks: jnp.ndarray, lengths: jnp.ndarray,
     cap = N // 4
     if max_words is None:
         max_words = (cap * 12) // 32 + 8  # 11-bit codes + slack
-    keys = literal_keys(blocks, lengths, chosen, mlen,
-                        interpret=interpret)
+    keys = literal_keys(blocks, lengths, chosen, mlen)
     valid = keys != jnp.uint32(SENT)
     byte = (keys & jnp.uint32(0xFF)).astype(jnp.int32)
     n_lit = valid.sum(axis=1).astype(jnp.int32)
@@ -165,10 +89,9 @@ def encode_literals_device(blocks: jnp.ndarray, lengths: jnp.ndarray,
     # lookup is a SORTED JOIN: one single-word sort interleaves each
     # block's 256 table rows (carrying their entry in the low bits)
     # ahead of that byte's literals, and a hold-last scan propagates the
-    # entry to them. A chunked compare-reduce lookup measured 1.1-2.5 s
-    # per batch on v5e — the (N x 256) one-hot is the wrong shape for
-    # the VPU; the join costs one ~1.3 ms fast-path sort instead.
-    hist = byte_hist(keys, interpret=interpret)
+    # entry to them (a (N x 256) one-hot compare-reduce lookup would
+    # materialize 256x the batch).
+    hist = byte_hist(keys)
     t = huffman_tables.build_tables(hist)
     entry = t["codes"] | (t["nb_bits"] << 11)           # (B, 256), <= 15b
     elem_key = jnp.where(
@@ -231,8 +154,7 @@ def encode_literals_device(blocks: jnp.ndarray, lengths: jnp.ndarray,
     packed = (s2 & jnp.uint32(0x7FFF)).astype(jnp.int32)
     lo = (packed & 0x7FF).reshape(B * 4, cap)
     nb = (packed >> 11).reshape(B * 4, cap)
-    # Log-depth reduction packer: the sort-based bitpack measured
-    # 10+ min to compile and ~25-35 ms/batch at this shape.
+    # Log-depth reduction packer (ops/bitconcat.py).
     words, bits, over = bitconcat.bitconcat(lo, jnp.zeros_like(lo), nb,
                                             max_words, max_item_bits=11)
     over_b = over.reshape(B, 4).any(axis=1)

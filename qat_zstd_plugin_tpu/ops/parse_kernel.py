@@ -1,21 +1,20 @@
-"""Pallas greedy-parse kernel: the sequential LZ parse at VPU speed.
+"""Greedy LZ parse as a Pallas kernel for the GPU (Triton route).
 
-The greedy parse is the one irreducibly sequential step of LZ77 (the analog
-of the byte-serial LZ4s token walk in the reference, QZSTD_decLz4s
-src/qatseqprod.c:1013-1091, which is its CPU hot loop). The TPU answer is
-batch-SIMD: lay the block batch B on the lane axis and sweep positions t
-with per-block cursor state — every VPU lane advances one block's parse,
-so the sweep costs O(N) *total* for the whole batch.
+The greedy parse is the one irreducibly sequential step of LZ77 (the
+analog of the byte-serial LZ4s token walk in the reference, QZSTD_decLz4s
+src/qatseqprod.c:1013-1091). The plain formulation,
+``match_pipeline.parse_greedy_scan``, sweeps every position of every row
+in lockstep: a ``lax.scan`` of N dependent steps, each a device launch.
 
-Layout: (N, B) with B on lanes (pad B to a multiple of 128 for full VPU
-width). The kernel runs a 1-D grid over column chunks of T positions;
-cursor state lives in VMEM scratch and persists across grid steps (TPU grid
-execution is sequential), giving a single continuous scan with
-double-buffered chunk DMA handled by the pallas pipeline.
+Here each row (a block, or one parse segment of a block) is one program
+that walks its own cursor in a ``lax.while_loop``: it visits only the
+positions the cursor lands on, reads ``mlen[cur]`` (and ``mlen[cur + 1]``
+when lazy) and marks the taken ones. Rows are independent, so the
+programs run in any order. The output starts as zeros (aliased input), so
+unvisited positions cost nothing.
 
-The optional lazy mode defers a match when the next position holds a
-strictly longer candidate (one-step lazy heuristic, matching the golden
-matcher's lazy step) — the second input is the +1-shifted length column.
+``parse_greedy`` is the entry every pipeline calls; the backend module
+decides whether the kernel or the scan runs.
 """
 
 from __future__ import annotations
@@ -25,90 +24,69 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .match_pipeline import MIN_MATCH
+from ..runtime import backend
+from .match_pipeline import MIN_MATCH, parse_greedy_scan
 
-CHUNK = 2048  # positions per grid step
 
-
-def _make_kernel(lazy: bool, np_total: int, trunc: bool):
-    def kernel(mlen_ref, mnext_ref, chosen_ref, cursor_ref):
-        step = pl.program_id(0)
-
-        @pl.when(step == 0)
-        def _():
-            cursor_ref[...] = jnp.zeros_like(cursor_ref)
-
-        base = step * mlen_ref.shape[0]
-
-        def body(i, cur):
-            t = base + i
-            col = mlen_ref[i, :]
+def _make_kernel(n: int, lazy: bool, trunc: bool):
+    def kernel(mlen_ref, _zeros_ref, chosen_ref):
+        def body(cur):
+            col = mlen_ref[cur]
             if trunc:
-                # Parse-segmented mode: candidates may not cross the
-                # segment end (each lane is an independent (block, parse
-                # segment) pair; a crossing match would overlap the next
-                # lane's cover). Truncation below MIN_MATCH simply drops
-                # the tail match — the host extension/gap-fill passes
-                # recover the bytes.
-                col = jnp.minimum(col, np_total - t)
-            active = cur == t
-            take = active & (col >= MIN_MATCH)
+                # Parse-segmented rows: a match may not cross the segment
+                # end (it would overlap the next segment's cover).
+                col = jnp.minimum(col, n - cur)
+            take = col >= MIN_MATCH
             if lazy:
-                take = take & ~(mnext_ref[i, :] > col)
-            chosen_ref[i, :] = take.astype(jnp.int32)
-            return jnp.where(take, t + col, jnp.where(active, t + 1, cur))
+                nxt = mlen_ref[jnp.minimum(cur + 1, n - 1)]
+                nxt = jnp.where(cur + 1 < n, nxt, 0)
+                take = take & ~(nxt > col)
+            chosen_ref[cur] = take.astype(jnp.int32)
+            return jnp.where(take, cur + col, cur + 1)
 
-        cursor_ref[0, :] = jax.lax.fori_loop(
-            0, mlen_ref.shape[0], body, cursor_ref[0, :])
+        jax.lax.while_loop(lambda cur: cur < n, body, jnp.int32(0))
 
     return kernel
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "lazy", "psegs"))
-def parse_greedy_pallas(mlen: jnp.ndarray, interpret: bool | None = None,
-                        lazy: bool = False, psegs: int = 1) -> jnp.ndarray:
+@functools.partial(jax.jit, static_argnames=("lazy", "psegs", "interpret"))
+def parse_greedy_kernel(mlen: jnp.ndarray, lazy: bool = False,
+                        psegs: int = 1, interpret: bool = False
+                        ) -> jnp.ndarray:
     """Greedy parse of candidate lengths. mlen: (B, N) -> chosen (B, N) bool.
 
-    Equivalent to match_pipeline.parse_greedy_scan (differentially tested);
-    runs as a Pallas kernel on TPU, interpret mode elsewhere.
-
-    psegs > 1 splits each block's position axis into psegs independent
-    parse segments laid out as extra lanes: the sequential sweep shortens
-    to N/psegs steps and the VPU lane axis fills to B*psegs. Candidates
-    are truncated at segment ends (no cross-lane matches), which is
-    ratio-free in the verified-claims flow: the host extension re-extends
-    forward across the boundary and gap-fill re-matches dropped tails.
-    Use only on paths whose claims are host-verified (hash matcher).
+    Same result as ``parse_greedy_scan(mlen, lazy, psegs)``. psegs > 1
+    splits each block into psegs independent parse segments (one program
+    each) and truncates candidates at segment ends; use it only where the
+    claims are host-verified (the host extension re-extends across the
+    boundary and gap-fill re-matches dropped tails).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     B, N = mlen.shape
-    if psegs > 1:
-        assert N % psegs == 0, (N, psegs)
-        mlen = mlen.reshape(B * psegs, N // psegs)
-    R, Np = mlen.shape
-    chunk = min(CHUNK, Np)
-    assert Np % chunk == 0, (Np, chunk)
-    mt = mlen.T  # (Np, R): lanes = (block, parse segment)
-    mnext = jnp.concatenate(
-        [mlen[:, 1:], jnp.zeros((R, 1), mlen.dtype)], axis=1).T
-
-    grid = (Np // chunk,)
-    spec = pl.BlockSpec((chunk, R), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    chosen_t = pl.pallas_call(
-        _make_kernel(lazy, Np, psegs > 1),
-        grid=grid,
+    assert N % psegs == 0, (N, psegs)
+    R, n = B * psegs, N // psegs
+    rows = mlen.astype(jnp.int32).reshape(R, n)
+    spec = pl.BlockSpec((None, n), lambda r: (r, 0))
+    chosen = pl.pallas_call(
+        _make_kernel(n, lazy, psegs > 1),
+        grid=(R,),
         in_specs=[spec, spec],
-        out_specs=pl.BlockSpec((chunk, R), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Np, R), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((1, R), jnp.int32)],
+        out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((R, n), jnp.int32),
+        input_output_aliases={1: 0},
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(mt, mnext)
-    chosen = chosen_t.T
-    if psegs > 1:
-        chosen = chosen.reshape(B, N)
-    return chosen.astype(bool)
+        name="parse_greedy",
+    )(rows, jnp.zeros((R, n), jnp.int32))
+    return chosen.reshape(B, N).astype(bool)
+
+
+def parse_greedy(mlen: jnp.ndarray, lazy: bool = False,
+                 psegs: int = 1) -> jnp.ndarray:
+    """The parse every pipeline runs: the kernel on the GPU, the plain
+    scan (the reference) on the CPU."""
+    if backend.compiled():
+        return parse_greedy_kernel(mlen, lazy=lazy, psegs=psegs)
+    return parse_greedy_scan(mlen, lazy=lazy, psegs=psegs)

@@ -1,13 +1,13 @@
 """Multi-host scale-out: jax.distributed init + ordered compressed gather.
 
 The reference is single-host (its "interconnect" is PCIe DMA rings,
-SURVEY §5); the TPU codec's cross-host story is:
+SURVEY §5); the codec's cross-host story is:
 
 * `init()` — jax.distributed.initialize wrapper (DCN rendezvous);
 * block data-parallelism over the global mesh (parallel/mesh.py);
 * `gather_compressed()` — the ordered variable-size collect: compressed
   blocks are size-prefixed and padded to a static bound, all-gathered over
-  the mesh (ICI within a slice, DCN across hosts), then trimmed host-side
+  the mesh (NVLink within a host, the network across hosts), then trimmed host-side
   in frame order. This is the collective that replaces per-instance DMA
   completion ordering in the reference's model.
 """
@@ -84,7 +84,7 @@ def gather_rows(mesh, padded: np.ndarray, sizes: np.ndarray,
     differ; rows are padded to the max count with id -1) and every
     process returns the union. Single-process: the rows ride a device
     all-gather over the mesh (shard -> replicate constraint), exercising
-    the same collective the multi-host path uses over ICI/DCN.
+    the same collective the multi-host path uses across devices and hosts.
     """
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils

@@ -3,20 +3,19 @@
 The reference's only parallelism is data parallelism over independent
 128 KiB blocks: app threads round-robin over up to 64 QAT DC instances
 (src/qatseqprod.c:601-630, README.md:138-178), coordinated by an instance
-pool spinlock (src/qatseqprod.c:905-933). On TPU there is no lock to take:
-blocks shard over a 1-D "blocks" mesh axis with shard_map; per-chip streams
-are serialized by XLA, and the "instance shuffle" becomes the block->chip
-round-robin implied by the sharding. Cross-host runs initialize through
-jax.distributed; compressed sizes ride an ordered all-gather (ICI/DCN
-collectives replace the reference's PCIe DMA rings).
+pool spinlock (src/qatseqprod.c:905-933). Here there is no lock to take:
+blocks shard over a 1-D "blocks" mesh axis with shard_map (every card
+reaches every other over NVLink at the same rate, so the mesh is flat);
+per-device streams are serialized by XLA, and the "instance shuffle"
+becomes the block->device round-robin implied by the sharding.
+Cross-host runs initialize through jax.distributed; compressed sizes ride
+an ordered all-gather (collectives replace the reference's PCIe DMA
+rings).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -31,68 +30,62 @@ def make_mesh(devices=None) -> Mesh:
     return Mesh(devs.reshape(-1), (AXIS,))
 
 
+def shard_blocks(fn, mesh: Mesh, out_specs):
+    """Run a per-shard (blocks, lengths) -> out function over the mesh's
+    block axis with shard_map: every device runs the identical program on
+    its own rows. Under shard_map a Pallas kernel inside `fn` runs per
+    device (the SPMD partitioner cannot split a kernel call)."""
+    in_specs = (P(AXIS, None), P(AXIS))
+    return jax.jit(
+        jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                      out_specs=out_specs, check_vma=False),
+        in_shardings=tuple(NamedSharding(mesh, s) for s in in_specs))
+
+
 def sharded_pipeline(mesh: Mesh, neighbors: int = 4, max_seq: int = 16384,
-                     parser: str = "scan", lazy: bool = False,
-                     window: int = 1 << 30):
-    """jit'd batched match pipeline sharded over the mesh's block axis.
+                     lazy: bool = False, window: int = 1 << 30):
+    """Batched match pipeline sharded over the mesh's block axis.
 
-    Input batch dimension must be divisible by mesh size; each chip runs the
-    identical per-block program on its shard (SPMD), no cross-chip traffic
-    in the hot loop — matching the reference's share-nothing instances.
+    Input batch dimension must be divisible by mesh size; each device runs
+    the identical per-block program on its shard (SPMD), no cross-device
+    traffic in the hot loop — matching the reference's share-nothing
+    instances.
     """
-    spec = P(AXIS, None)
-    in_shardings = (NamedSharding(mesh, spec),
-                    NamedSharding(mesh, P(AXIS)))
-    out_shardings = {
-        "lit_len": NamedSharding(mesh, spec),
-        "offset": NamedSharding(mesh, spec),
-        "match_len": NamedSharding(mesh, spec),
-        "nseq": NamedSharding(mesh, P(AXIS)),
-        "last_literals": NamedSharding(mesh, P(AXIS)),
-        "overflow": NamedSharding(mesh, P(AXIS)),
-    }
-
-    @functools.partial(jax.jit, in_shardings=in_shardings,
-                       out_shardings=out_shardings)
-    def run(blocks, lengths):
+    def local(blocks, lengths):
         return match_pipeline.find_matches_batch(
             blocks, lengths, neighbors=neighbors, max_seq=max_seq,
-            parser=parser, lazy=lazy, window=window)
+            lazy=lazy, window=window)
 
-    return run
+    rows, per_block = P(AXIS, None), P(AXIS)
+    return shard_blocks(local, mesh, {
+        "lit_len": rows, "offset": rows, "match_len": rows,
+        "nseq": per_block, "last_literals": per_block,
+        "overflow": per_block})
 
 
 def sharded_positions_step(mesh: Mesh, widths: tuple = (6,),
                            window: int = 32768, ldm: int = 4,
-                           sync: bool = True,
-                           interpret: bool | None = None):
+                           sync: bool = True):
     """The production fast-level pipeline (hash matcher + minimizer LDM +
     dense slot contract, glue_kernels.find_matches_positions) sharded
-    over the block axis with shard_map.
+    over the block axis.
 
-    Each device runs the identical per-shard program (SPMD, no hot-loop
-    collectives — the reference's share-nothing instance model). LDM span
-    context slides within a shard only: the first span of every shard
-    sees empty context, exactly like the first span of a single-chip
-    batch, so shard boundaries degrade gracefully to local matching.
-    Returns a jitted (blocks, lengths) -> slot-words function.
+    LDM span context slides within a shard only: the first span of every
+    shard sees empty context, exactly like the first span of a
+    single-device batch, so shard boundaries degrade gracefully to local
+    matching. Returns a jitted (blocks, lengths) -> slot-words function.
     """
-    from jax.experimental.shard_map import shard_map
-
     from ..ops import glue_kernels
 
     def local(blocks, lengths):
         return glue_kernels.find_matches_positions(
             blocks, lengths, widths=widths, window=window,
-            ldm=ldm, dense=True, sync=sync, interpret=interpret)
+            ldm=ldm, dense=True, sync=sync)
 
-    fn = shard_map(local, mesh=mesh, in_specs=(P(AXIS, None), P(AXIS)),
-                   out_specs=P(AXIS, None), check_rep=False)
-    return jax.jit(fn)
+    return shard_blocks(local, mesh, P(AXIS, None))
 
 
-def compression_step(mesh: Mesh, neighbors: int = 4, max_seq: int = 16384,
-                     parser: str = "scan"):
+def compression_step(mesh: Mesh, neighbors: int = 4, max_seq: int = 16384):
     """Full sharded 'training-step' analog used by the multi-chip dryrun:
     per-chip match pipeline + ordered all-gather of per-block stats.
 
@@ -100,7 +93,7 @@ def compression_step(mesh: Mesh, neighbors: int = 4, max_seq: int = 16384,
     (size-prefixed, max-bound padded) that multi-host frame assembly uses:
     every chip learns every block's nseq/last_literals in frame order.
     """
-    pipeline = sharded_pipeline(mesh, neighbors, max_seq, parser)
+    pipeline = sharded_pipeline(mesh, neighbors, max_seq)
 
     @jax.jit
     def gather_stats(out):

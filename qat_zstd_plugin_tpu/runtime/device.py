@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 class Status(enum.Enum):
     """Tri-state init result (QZSTD_Status_e, src/qatseqprod.h:57-66)."""
     OK = 0        # accelerator up and usable
-    STARTED = 1   # runtime up but no TPU: CPU fallback only (degraded)
+    STARTED = 1   # runtime up but no GPU: CPU path only (degraded)
     FAIL = 2      # not started
 
 
@@ -40,38 +40,26 @@ RETRY_INTERVAL_BLOCKS = 1000
 
 
 def start_device() -> Status:
-    """Initialize the JAX runtime and discover TPU devices (idempotent)."""
+    """Initialize the JAX runtime and discover devices (idempotent):
+    OK on a GPU, STARTED (CPU-only, degraded) on the CPU, FAIL when JAX
+    cannot start or its platform is not one the codec runs on."""
     with _state.lock:
         if _state.status == Status.OK:
             return Status.OK
+        import jax
+
+        from . import backend
         try:
-            import jax
-            try:
-                # Persistent compile cache: compiled executables survive
-                # process restarts (the analog of the reference's session
-                # reuse across blocks, src/qatseqprod.c:1211-1220, at
-                # program scope).
-                import os
-                cache = os.environ.get(
-                    "QZ_JAX_CACHE",
-                    os.path.join(os.path.dirname(os.path.dirname(
-                        os.path.dirname(os.path.abspath(__file__)))),
-                        ".jax_cache"))
-                jax.config.update("jax_compilation_cache_dir", cache)
-            except Exception:
-                pass
             devs = jax.devices()
-        except Exception:
+            platform = backend.platform()
+        except RuntimeError:
             _state.status = Status.FAIL
             return _state.status
         _state.devices = devs
-        _state.platform = devs[0].platform if devs else ""
-        tpu_like = any(d.platform not in ("cpu",) for d in devs)
-        _state.status = Status.OK if devs else Status.FAIL
-        if devs and not tpu_like:
-            # Runtime is up but only CPU devices: degraded mode. The XLA
-            # CPU path still works, so this is STARTED, not FAIL.
-            _state.status = Status.STARTED
+        _state.platform = platform
+        # CPU only: the runtime is up and the plain-XLA path works, so
+        # this is STARTED (degraded), not FAIL.
+        _state.status = Status.OK if platform == "gpu" else Status.STARTED
         _state.fail_offload_count = 0
         return _state.status
 

@@ -1,4 +1,4 @@
-"""Device-accelerated codec: host orchestration around the TPU pipeline.
+"""Device-accelerated codec: host orchestration around the device pipeline.
 
 The shape of this module mirrors the reference's offload hot path
 (qatSequenceProducer, src/qatseqprod.c:1106-1336) translated to the XLA
@@ -12,9 +12,9 @@ execution model:
 * any per-block failure (sequence-capacity overflow, short block) falls
   back to the golden CPU matcher, the analog of
   ZSTD_c_enableSeqProducerFallback (README.md:197-198);
-* entropy coding + frame assembly stay on host (the C++ native runtime is
-  the fast path; format/ golden is the fallback) until the on-TPU entropy
-  stage lands.
+* entropy coding + frame assembly stay on host by default (the C++
+  native runtime is the fast path; format/ golden is the fallback); the
+  device_entropy modes move them onto the device.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..golden import codec as golden_codec
 from ..golden import matcher as golden_matcher
 from ..utils import config, logging
 from ..utils.profiling import BlockStats, Timer
-from . import device
+from . import backend, device
 
 BLOCK = tables.BLOCK_SIZE_MAX
 
@@ -52,9 +52,9 @@ class TpuLevelParams:
     # sorts carrying content words.
     matcher: str = "content"
     widths: tuple = (4, 8)
-    # Hash-path tuning: psegs parse-segments each block (extra VPU lanes,
-    # fewer sequential steps; claims stay host-verified so segment-end
-    # truncation is ratio-free).
+    # Hash-path tuning: psegs parse-segments each block (more parallel
+    # rows, fewer sequential steps; claims stay host-verified so
+    # segment-end truncation is ratio-free).
     psegs: int = 1
     # Long-distance matching: span size in blocks (0 = off). Samples
     # 8-byte grams over sliding ldm-block spans so candidates at up to
@@ -72,9 +72,9 @@ class TpuLevelParams:
     sync: bool = False
 
 
-# Fast levels ride the hash matcher (XLA's single-operand sort fast path,
-# ~8x cheaper per sort); higher levels keep exact-LCP content sorts with
-# progressively wider windows. L1 is the syncmer speed point (pair-
+# Fast levels ride the hash matcher (single-operand sorts, a fraction of
+# the bytes of a multi-operand sort); higher levels keep exact-LCP content
+# sorts with progressively wider windows. L1 is the syncmer speed point (pair-
 # sampled anchors, half the sort volume — the throughput analog of the
 # QAT DC engine's L1 rating); L2 keeps full-resolution anchors at the
 # same width for ~1% better ratio at ~55% of the speed.
@@ -184,7 +184,7 @@ class TpuCodec:
 
     def __init__(self, level: int = 1, batch: int | None = None,
                  block_size: int | None = None, max_seq: int | None = None,
-                 parser: str | None = None, use_device: bool | None = None,
+                 use_device: bool | None = None,
                  device_entropy: bool | str | None = None):
         if level not in TPU_LEVEL_TABLE:
             raise ValueError(
@@ -194,26 +194,27 @@ class TpuCodec:
         self.params = TPU_LEVEL_TABLE[level]
         self.batch = cfg.batch if batch is None else batch
         self.block_size = cfg.block_size if block_size is None else block_size
-        self.max_seq = cfg.max_seq if max_seq is None else max_seq
-        self.parser = parser
+        if cfg.force_backend not in ("", "cpu"):
+            raise ValueError(
+                f"QZ_FORCE_BACKEND={cfg.force_backend!r}: expected '' "
+                f"(device path) or 'cpu' (software only)")
         if use_device is None:
-            # QZ_FORCE_BACKEND: "" = auto (device when present), "cpu" =
-            # software only, "tpu" = require the device path — the
-            # config-section/driver-flavor knob (src/qatseqprod.c:481-496).
+            # QZ_FORCE_BACKEND: "" = the device path (the plain-XLA
+            # reference when JAX has only the CPU), "cpu" = software
+            # only — the config-section/driver-flavor knob
+            # (src/qatseqprod.c:481-496).
             use_device = cfg.force_backend != "cpu"
         self.use_device = use_device
         self.checksum_default = cfg.checksum
         self.stats = BlockStats()
-        # device_entropy: False/None = host entropy (default, best
-        # throughput on attached hardware); "hybrid" = the accelerator
-        # emits final FSE sequence sections and the host encodes only the
-        # literals (the deployable PCIe-constrained point: the device
-        # side is two fused stages at ~390/430 MB/s, BENCH_NOTES r4 lane
-        # section); True/"full" = device emits complete block bodies
-        # (sequence sections + Huffman literals — the smallest return
-        # link, bounded by the format-sequential FSE state chain). The
-        # static-config trade the QAT session makes once per session
-        # (src/qatseqprod.c:935-946). Env default: QZ_DEVICE_ENTROPY.
+        # device_entropy: False/None = host entropy (default); "hybrid" =
+        # the accelerator emits final FSE sequence sections and the host
+        # encodes only the literals; True/"full" = device emits complete
+        # block bodies (sequence sections + Huffman literals — the
+        # smallest return link, bounded by the format-sequential FSE
+        # state chain). The static-config trade the QAT session makes
+        # once per session (src/qatseqprod.c:935-946). Env default:
+        # QZ_DEVICE_ENTROPY.
         if device_entropy is None:
             env_map = {"": False, "0": False, "off": False,
                        "1": True, "full": True, "hybrid": "hybrid"}
@@ -231,15 +232,16 @@ class TpuCodec:
             raise ValueError(
                 f"device_entropy must be False, True/'full' or 'hybrid', "
                 f"got {device_entropy!r}")
+        if device_entropy != "hybrid":
+            device_entropy = bool(device_entropy)  # 1 -> True, 0 -> False
         self.device_entropy = device_entropy
+        self.max_seq = cfg.max_seq if max_seq is None else max_seq
+        # Device-entropy section capacity: 16 bits per sequence on
+        # average (measured sections run ~17 bits/sequence at 16K+
+        # sequences per block); blocks past either capacity fall back.
+        self.seq_words = self.max_seq // 2
         self.fallback_batches = 0  # device failures absorbed by CPU path
         self._fn = None
-
-    def _resolve_parser(self) -> str:
-        if self.parser is not None:
-            return self.parser
-        import jax
-        return "pallas" if jax.default_backend() == "tpu" else "scan"
 
     def _matcher(self) -> str:
         # The hash matcher's claims are only probabilistic until the host
@@ -252,7 +254,7 @@ class TpuCodec:
     def _pipeline(self):
         if self._fn is None:
             from ..ops import match_pipeline
-            parser = self._resolve_parser()
+            backend.platform()  # rejects an unsupported platform early
 
             if self.device_entropy:
                 # Device entropy encodes final FSE sections from the raw
@@ -270,7 +272,7 @@ class TpuCodec:
                     def run(blocks, lengths):
                         return match_pipeline.find_matches_with_seqsec_hash(
                             blocks, lengths, neighbors=2,
-                            max_seq=self.max_seq, parser=parser,
+                            max_seq=self.max_seq, seq_words=self.seq_words,
                             lazy=self.params.lazy,
                             window=self.params.window,
                             custom_tables=self.params.custom_tables,
@@ -280,7 +282,7 @@ class TpuCodec:
                         return match_pipeline.find_matches_with_seqsec(
                             blocks, lengths,
                             neighbors=self.params.neighbors,
-                            max_seq=self.max_seq, parser=parser,
+                            max_seq=self.max_seq, seq_words=self.seq_words,
                             lazy=self.params.lazy,
                             stride=self.params.stride,
                             window=self.params.window,
@@ -297,8 +299,7 @@ class TpuCodec:
                     return match_pipeline.find_matches_positions(
                         blocks, lengths, widths=self.params.widths,
                         neighbors=self.params.neighbors,
-                        window=self.params.window, max_seq=self.max_seq,
-                        parser=parser, lazy=self.params.lazy,
+                        window=self.params.window, lazy=self.params.lazy,
                         psegs=self.params.psegs, ldm=self.params.ldm,
                         ldm_max_off=ldm_max_off,
                         dense=self.params.dense, sync=self.params.sync)
@@ -316,7 +317,7 @@ class TpuCodec:
                 def run(blocks, lengths):
                     return match_pipeline.find_matches_packed(
                         blocks, lengths, neighbors=self.params.neighbors,
-                        max_seq=self.max_seq, parser=parser,
+                        max_seq=self.max_seq,
                         lazy=self.params.lazy, stride=self.params.stride,
                         window=self.params.window,
                         matcher=self._matcher(), widths=self.params.widths,
@@ -658,9 +659,9 @@ class TpuCodec:
                     seqs = self.collect_batch(handle)
                 except Exception as e:
                     self.fallback_batches += 1
-                    logging.error("device batch failed (%s); CPU fallback "
-                                  "for %d blocks", type(e).__name__,
-                                  len(ids))
+                    logging.error("device batch failed (%s: %s); CPU "
+                                  "fallback for %d blocks",
+                                  type(e).__name__, e, len(ids))
                     if device.note_offload_failure():
                         logging.event("attempting device restart")
                         device.stop_device()
@@ -679,8 +680,9 @@ class TpuCodec:
                         (ids, self.submit_batch(blocks_np, lengths_np)))
                 except Exception as e:
                     self.fallback_batches += 1
-                    logging.error("device submit failed (%s); CPU fallback",
-                                  type(e).__name__)
+                    logging.error("device submit failed (%s: %s); CPU "
+                                  "fallback for %d blocks",
+                                  type(e).__name__, e, len(ids))
                     device.note_offload_failure()
                     for i in ids:
                         futures[i] = pool.submit(finish_block, i, None)

@@ -24,6 +24,7 @@ reference's thread-per-CCtx pressure via processes).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import threading
 import time
@@ -258,6 +259,17 @@ def run(argv=None) -> int:
     return 0 if ok else 1
 
 
+def _gpu_count() -> int:
+    """Cards visible to this host, counted without starting JAX."""
+    import subprocess
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return 0
+    return sum(1 for ln in out.splitlines() if ln.startswith("GPU "))
+
+
 def _run_multiprocess(args) -> int:
     """Aggregate throughput over N independent interpreter processes —
     the reference's 2048-pthread contention test (benchmark.c:439-441,
@@ -271,9 +283,20 @@ def _run_multiprocess(args) -> int:
                 "-c", str(args.chunk_kb), "-m", str(args.mode),
                 "-E", str(args.repcodes), "-L", str(args.loops),
                 "--batch", str(args.batch), "--json"]
+    envs = [None] * args.processes
+    if args.mode == 1:
+        # Device mode: a JAX process reserves most of its card's memory,
+        # so each child gets a card of its own (the parent stays off JAX).
+        cards = _gpu_count()
+        if args.processes > cards:
+            print(f"-P {args.processes} in device mode needs one GPU per "
+                  f"process; found {cards}", file=_sys.stderr)
+            return 2
+        envs = [dict(os.environ, CUDA_VISIBLE_DEVICES=str(i))
+                for i in range(args.processes)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(cmd_base, stdout=subprocess.PIPE)
-             for _ in range(args.processes)]
+    procs = [subprocess.Popen(cmd_base, stdout=subprocess.PIPE, env=env)
+             for env in envs]
     outs = [p.communicate()[0].decode() for p in procs]
     wall = time.perf_counter() - t0
     ok = all(p.returncode == 0 for p in procs)

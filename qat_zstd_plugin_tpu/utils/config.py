@@ -33,7 +33,7 @@ class Config:
     batch: int = 8                 # blocks per device dispatch
     block_size: int = tables.BLOCK_SIZE_MAX
     max_seq: int = 16384           # device sequence capacity per block
-    force_backend: str = ""        # "", "cpu", "tpu"
+    force_backend: str = ""        # "" = device path, "cpu" = software
     checksum: bool = True
     debug_level: int = 0
     # Entropy placement: "" / "0" / "off" = host entropy; "hybrid" =

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
-"""Real-pod readiness kit: one command -> scaling table + parity artifact.
+"""Multi-host readiness kit: one command -> scaling table + parity artifact.
 
 The dryrun (__graft_entry__.dryrun_multichip) proves the sharded step
 COMPILES and produces parity frames on virtual devices; this script is
-the recipe for the hour a real pod slot appears (VERDICT r4 #8). Run it
-AS-IS on every host of the slice:
+the recipe for a multi-host run. Run it AS-IS on every host:
 
   # single host (1 process, all local chips — also the CPU simulation):
   python scripts/pod_run.py --mb 64
@@ -21,7 +20,7 @@ Artifacts (written by process 0):
 
 North star (BASELINE.md): >= 80% linear scaling at N >= 2 hosts. On
 virtual CPU devices the efficiency column is methodology only (all
-"chips" share host cores); on a real slice it is the ICI-mesh number.
+"devices" share host cores).
 """
 
 from __future__ import annotations
@@ -82,7 +81,6 @@ def main() -> None:
         return b"".join(parts)[:nbytes]
 
     # --- sharded-step weak scaling: fixed 4 x 128 KiB blocks/device.
-    interpret = jax.default_backend() != "tpu"
     step_rows = {}
     sdata = corpus(4 * n * BLOCK)
     sblocks = np.frombuffer(sdata, np.uint8).reshape(4 * n, BLOCK)
@@ -91,7 +89,7 @@ def main() -> None:
     def timed(nmesh: int) -> float:
         m = pmesh.make_mesh(devs[:nmesh])
         s = pmesh.sharded_positions_step(m, widths=(6,), window=32768,
-                                         ldm=4, interpret=interpret)
+                                         ldm=4)
         bl, ln = sblocks[: 4 * nmesh], slengths[: 4 * nmesh]
         np.asarray(s(bl, ln))  # compile + warm
         best = float("inf")

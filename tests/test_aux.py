@@ -1,6 +1,8 @@
 """Auxiliary subsystem tests: logging, config, recovery, profiling,
 distributed gather, packaging surface."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,8 @@ from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
 from qat_zstd_plugin_tpu.utils import config as qzconfig
 from qat_zstd_plugin_tpu.utils import logging as qzlog
 from qat_zstd_plugin_tpu.utils.profiling import BlockStats, Timer
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def test_logging_levels(capsys):
@@ -45,7 +49,7 @@ def test_config_drives_codec_defaults(monkeypatch):
         assert c.block_size == 16384
         assert c.max_seq == 2048
         assert c.use_device is False
-        data = open("/root/repo/SURVEY.md", "rb").read()[:40000]
+        data = open(REPO / "SURVEY.md", "rb").read()[:40000]
         f = c.compress(data)
         # QZ_CHECKSUM=0: frame header must not carry a content checksum.
         assert not (f[4] & 0x04)
@@ -58,7 +62,7 @@ def test_config_drives_codec_defaults(monkeypatch):
 
 
 def test_codec_feeds_block_stats():
-    data = open("/root/repo/SURVEY.md", "rb").read()
+    data = open(REPO / "SURVEY.md", "rb").read()
     c = TpuCodec(level=1, batch=2, block_size=16384, use_device=False)
     c.compress(data)
     s = c.stats.summary()
@@ -87,7 +91,7 @@ def test_failure_counter_retry_interval():
 def test_device_error_falls_back_to_cpu(monkeypatch):
     """A broken device pipeline must still produce a valid frame
     (producer-error -> fallback semantics)."""
-    data = open("/root/repo/SURVEY.md", "rb").read()
+    data = open(REPO / "SURVEY.md", "rb").read()
     c = TpuCodec(level=1, batch=2, block_size=16384, use_device=True)
 
     def boom(*a, **k):

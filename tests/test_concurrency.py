@@ -20,6 +20,7 @@ updates and fails the accounting assertion below).
 """
 
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ import qat_zstd_plugin_tpu as qz
 from qat_zstd_plugin_tpu import oracle
 from qat_zstd_plugin_tpu.runtime import device
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
+
+REPO = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="stock libzstd oracle unavailable")
@@ -38,7 +41,7 @@ NTHREADS = 8
 def _mkdata(seed: int, n: int = 300_000) -> bytes:
     rng = np.random.default_rng(seed)
     rec = rng.integers(0, 256, 128, np.uint8).tobytes()
-    return (open("/root/repo/SURVEY.md", "rb").read()
+    return (open(REPO / "SURVEY.md", "rb").read()
             + rec * 800 + rng.integers(0, 64, n, np.uint8)
             .astype(np.uint8).tobytes())[:n]
 

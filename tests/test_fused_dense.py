@@ -1,11 +1,11 @@
 """Differential tests for the fused dense pipeline stages.
 
-The dense production path fuses three formerly-separate programs:
-hash_keys + ldm_winmin into one kernel (one read of the block bytes),
-and dense-claim derivation + LDM slot-plane merge + slot compaction
-into one program (compact_slots_dense). Each fusion must be
-bit-identical to the unfused composition it replaced (merge_ldm +
-chosen-mask + compact_slots), on content that actually exercises LDM.
+The dense production path merges dense-claim derivation + the LDM
+slot-plane merge + slot compaction into one stage (compact_slots_dense),
+and the sync head shares one 8-byte-gram hash between the pair selector
+and the LDM minimizer plane. Each must be bit-identical to the separate
+composition it replaced (merge_ldm + chosen-mask + compact_slots; the
+standalone minimizer), on content that actually exercises LDM.
 """
 
 import numpy as np
@@ -30,15 +30,14 @@ def ldm_blocks():
 
 def _unfused(blocks, lengths, widths, window, ldm):
     mlen, moff = gk.candidates_hash_split(blocks, lengths, widths=widths,
-                                          neighbors=1, window=window,
-                                          interpret=True)
+                                          neighbors=1, window=window)
     if ldm:
-        su = gk.ldm_unsorted(blocks, ldm, neighbors=1, interpret=True)
+        su = gk.ldm_unsorted(blocks, ldm, neighbors=1)
         mlen, moff = gk.merge_ldm(mlen, moff, su, lengths, ldm,
                                   local_cap=4 * max(widths),
                                   max_off=1 << 19)
     chosen = (mlen >= MIN_MATCH).astype(jnp.int32)
-    return gk.compact_slots(chosen, moff, window, interpret=True)
+    return gk.compact_slots(chosen, moff, window)
 
 
 @pytest.mark.parametrize("widths,ldm", [((6,), 4), ((5, 8), 4),
@@ -48,20 +47,20 @@ def test_fused_dense_matches_unfused(ldm_blocks, widths, ldm):
     window = 4096
     ref = _unfused(blocks, lengths, widths, window, ldm)
     new = gk.find_matches_positions(blocks, lengths, widths=widths,
-                                    window=window, ldm=ldm, dense=True,
-                                    interpret=True)
+                                    window=window, ldm=ldm, dense=True)
     assert (np.asarray(ref) == np.asarray(new)).all()
 
 
 def test_hash_keys_winmin_matches_separate(ldm_blocks):
+    """The sync head's LDM minimizer plane (sharing its 8-byte-gram
+    hash with the pair selector) equals the standalone minimizer pass."""
     blocks, _ = ldm_blocks
     window, width = 4096, 6
     stride = gk.ldm_stride(4, blocks.shape[1])
-    key_f, minz_f = gk.hash_keys_winmin(blocks, width, window, stride,
-                                        interpret=True)
-    key_s = gk.hash_keys(blocks, width, window, interpret=True)
-    minz_s = gk.ldm_winmin(blocks, stride, interpret=True)
-    assert (np.asarray(key_f) == np.asarray(key_s)).all()
+    key_f, minz_f = gk.hash_keys_winmin_sync(blocks, width, window, stride)
+    minz_s = gk.ldm_winmin(blocks, stride)
+    B, N = blocks.shape
+    assert key_f.shape == (B * N // window, window // 2)
     assert (np.asarray(minz_f) == np.asarray(minz_s)).all()
 
 

@@ -1,10 +1,14 @@
 """Golden CPU codec tests: matcher validity + oracle round-trips + ratio."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from qat_zstd_plugin_tpu import oracle
 from qat_zstd_plugin_tpu.golden import codec, matcher
+
+REPO = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="stock libzstd oracle missing")
@@ -14,7 +18,7 @@ def _mixed_corpus(n, seed=0):
     """Synthetic mixed data: text-ish, runs, binary, random."""
     rng = np.random.default_rng(seed)
     parts = []
-    words = [b"the ", b"compression ", b"of ", b"data ", b"zstd ", b"tpu ",
+    words = [b"the ", b"compression ", b"of ", b"data ", b"zstd ", b"gpu ",
              b"block ", b"sequence ", b"frame ", b"entropy "]
     while sum(map(len, parts)) < n:
         kind = rng.integers(0, 4)
@@ -81,7 +85,7 @@ def test_ratio_parity_with_stock_zstd():
     """North-star ratio check on a real text file (BASELINE.md: compressed
     size <= plugin's; the plugin's ratio == libzstd's at same level since
     libzstd does the entropy coding)."""
-    data = open("/root/repo/SURVEY.md", "rb").read()
+    data = open(REPO / "SURVEY.md", "rb").read()
     for level in (1, 9):
         ours = len(codec.compress(data, level=level))
         theirs = len(oracle.compress(data, level=level))

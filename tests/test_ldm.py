@@ -12,6 +12,7 @@ plugin inherits from libzstd, src/qatseqprod.c:1123) and zstd's own
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from qat_zstd_plugin_tpu.ops import glue_kernels as gk
 from qat_zstd_plugin_tpu.ops import match_pipeline as mp
 from qat_zstd_plugin_tpu.runtime.tpu_codec import (TPU_LEVEL_TABLE,
                                                    TpuCodec)
+
+REPO = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="hash path needs native runtime")
@@ -92,8 +95,7 @@ def test_contract_v2_positions_and_offsets_roundtrip():
     for b, p, o in claims:
         chosen[b, p] = 1
         moff[b, p] = o
-    slots = gk.compact_slots(jnp.asarray(chosen), jnp.asarray(moff), w,
-                             interpret=True)
+    slots = gk.compact_slots(jnp.asarray(chosen), jnp.asarray(moff), w)
     per = mp.unpack_segments(np.asarray(slots), B, w)
     got = [(b, int(p), int(o)) for b in range(B)
            for p, o in zip(*per[b])]
@@ -103,7 +105,7 @@ def test_contract_v2_positions_and_offsets_roundtrip():
 def _mixed_corpus(n, seed=0):
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "bench_mod", "/root/repo/bench.py")
+        "bench_mod", REPO / "bench.py")
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     return bench.make_corpus(n, seed=seed)

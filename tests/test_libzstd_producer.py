@@ -4,8 +4,10 @@ The reference's identity is a producer registered with stock libzstd
 (ZSTD_registerSequenceProducer, src/qatseqprod.h:110-116, driven by
 test/test.c:103-116). These tests drive OUR producer through the actual
 libzstd ZSTD_compress2 path — the one consumer that defines the contract —
-including the TPU-pipeline route, fallback semantics, and repcode search.
+including the device-pipeline route, fallback semantics, and repcode search.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,10 +15,12 @@ import pytest
 import qat_zstd_plugin_tpu as qz
 from qat_zstd_plugin_tpu import oracle
 
+REPO = Path(__file__).resolve().parents[1]
+
 
 @pytest.fixture(scope="module")
 def corpus():
-    data = open("/root/repo/SURVEY.md", "rb").read()
+    data = open(REPO / "SURVEY.md", "rb").read()
     rng = np.random.default_rng(7)
     rec = rng.integers(0, 256, 96, np.uint8).tobytes()
     return (data + rec * 400 + rng.integers(0, 256, 20000, np.uint8)
@@ -34,7 +38,7 @@ def test_producer_via_libzstd_cpu(corpus):
 
 
 def test_producer_via_libzstd_device_route(corpus):
-    """Blocks flow: libzstd -> our producer -> TPU match pipeline ->
+    """Blocks flow: libzstd -> our producer -> device match pipeline ->
     sequences -> libzstd entropy coding. Bit-exact round trip."""
     f = qz.compress_via_libzstd(corpus, level=1, use_device=True)
     stats = oracle.compress_with_producer.last_stats
@@ -115,7 +119,7 @@ def test_producer_via_libzstd_streaming(corpus):
 
 
 def test_producer_via_libzstd_streaming_device(corpus):
-    """Streaming pumps through the TPU route stay bit-exact."""
+    """Streaming pumps through the device route stay bit-exact."""
     f = qz.compress_stream_via_libzstd(corpus[:400000], level=1,
                                        use_device=True,
                                        chunk_size=100000, flush_every=2)

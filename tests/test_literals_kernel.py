@@ -1,6 +1,8 @@
 """Device Huffman literals: section round-trips through stock zstd when
 combined with a host sequences section from the same parse."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -10,6 +12,8 @@ from qat_zstd_plugin_tpu import oracle  # noqa: E402
 from qat_zstd_plugin_tpu.format import frame, sequences as seqmod  # noqa: E402
 from qat_zstd_plugin_tpu.ops import literals_kernel as lk  # noqa: E402
 from qat_zstd_plugin_tpu.ops import match_pipeline as mp  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _pipeline(buf, N):
@@ -26,13 +30,12 @@ def _pipeline(buf, N):
 
 def test_device_literals_section_bit_exact():
     rng = np.random.default_rng(5)
-    text = (open("/root/repo/SURVEY.md", "rb").read() * 5)[:131072]
+    text = (open(REPO / "SURVEY.md", "rb").read() * 5)[:131072]
     buf = np.frombuffer(text, np.uint8).copy()
     buf[60000:62000] = rng.integers(0, 256, 2000, np.uint8)
     N = len(buf)
     blocks, lengths, mlen, chosen, out = _pipeline(buf, N)
-    dev = lk.encode_literals_device(blocks, lengths, chosen, mlen,
-                                    interpret=True)
+    dev = lk.encode_literals_device(blocks, lengths, chosen, mlen)
     dev = {k: np.asarray(v) for k, v in dev.items()}
     assert bool(dev["ok"][0]), dev["n_lit"]
 
@@ -64,6 +67,5 @@ def test_device_literals_small_block_opts_out():
     pad = np.zeros(1024, np.uint8)
     pad[:N] = buf
     blocks, lengths, mlen, chosen, out = _pipeline(pad, N)
-    dev = lk.encode_literals_device(blocks, lengths, chosen, mlen,
-                                    interpret=True)
+    dev = lk.encode_literals_device(blocks, lengths, chosen, mlen)
     assert not bool(np.asarray(dev["ok"])[0])  # host path handles it

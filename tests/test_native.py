@@ -4,6 +4,8 @@ The native encoder is required to be *byte-identical* to format/ — same
 normalization, same heap tie-breaks, same mode selection — so either
 backend can finish any block interchangeably."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -12,6 +14,8 @@ from qat_zstd_plugin_tpu.format import frame
 from qat_zstd_plugin_tpu.format.frame import BlockSequences
 from qat_zstd_plugin_tpu.format.xxhash import xxh64 as py_xxh64
 from qat_zstd_plugin_tpu.golden import matcher
+
+REPO = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain missing")
@@ -153,7 +157,7 @@ def test_compress_blocks_mt_streaming_ranges():
     the single-range case (determinism within a range)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "bench_mod", "/root/repo/bench.py")
+        "bench_mod", REPO / "bench.py")
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     buf = np.frombuffer(bench.make_corpus(7 * 131072 + 12345, seed=11),
@@ -219,7 +223,7 @@ def test_fast_matcher_ratio_sane_vs_chain():
     persistent streaming context outweigh the lost chain depth)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "bench_mod", "/root/repo/bench.py")
+        "bench_mod", REPO / "bench.py")
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     buf = np.frombuffer(bench.make_corpus(1 << 20, seed=3), np.uint8)

@@ -60,6 +60,8 @@ software cell now beats stock on every probe corpus; the device path
 does too.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -67,12 +69,14 @@ from qat_zstd_plugin_tpu import native, oracle
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
 from qat_zstd_plugin_tpu.utils import corpora
 
+REPO = Path(__file__).resolve().parents[1]
+
 
 @pytest.fixture(scope="module")
 def corpus():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "bench_mod", "/root/repo/bench.py")
+        "bench_mod", REPO / "bench.py")
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     return bench.make_corpus(2 << 20)

@@ -10,6 +10,7 @@ see even offsets; measured 1.25x stock ratio, rejected in round 3).
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +18,8 @@ import pytest
 from qat_zstd_plugin_tpu import oracle
 from qat_zstd_plugin_tpu.ops import match_pipeline as mp
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TPU_LEVEL_TABLE, TpuCodec
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _claims(blocks_np, sync=True, ldm=0, window=32768):
@@ -121,7 +124,7 @@ def test_sync_with_ldm_bitexact_roundtrip():
     if not oracle.available():
         pytest.skip("oracle missing")
     rng = np.random.default_rng(4)
-    text = open("/root/repo/SURVEY.md", "rb").read()
+    text = open(REPO / "SURVEY.md", "rb").read()
     data = (text * 12)[: 1 << 20] + rng.integers(0, 256, 4096,
                                                  np.uint8).tobytes()
     base = TPU_LEVEL_TABLE[1]
@@ -139,7 +142,7 @@ def test_sync_ratio_within_envelope_of_dense():
         pytest.skip("oracle missing")
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "bench_mod", "/root/repo/bench.py")
+        "bench_mod", REPO / "bench.py")
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     data = bench.make_corpus(1 << 20, seed=9)

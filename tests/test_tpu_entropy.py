@@ -1,4 +1,4 @@
-"""On-TPU entropy component tests (CPU backend; identical XLA programs).
+"""Device entropy component tests (CPU backend: the same XLA programs the GPU runs).
 
 bitpack and the FSE sequence-section kernel are required to be
 byte-identical to the golden writers."""
@@ -174,3 +174,13 @@ def test_device_entropy_env_default(monkeypatch):
             TpuCodec(level=1, device_entropy="bogus")
     finally:
         config.set(None)
+
+
+@pytest.mark.parametrize("value,want", [(1, True), (0, False),
+                                        ("full", True)])
+def test_device_entropy_value_normalised(value, want):
+    """Numeric and named forms select the same mode as the bool: 1 runs
+    full device bodies (device literals), not a hybrid-like mix."""
+    from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
+    assert TpuCodec(level=1, use_device=False,
+                    device_entropy=value).device_entropy is want

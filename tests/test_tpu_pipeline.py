@@ -1,9 +1,12 @@
-"""Device match-pipeline tests (run on CPU backend; same XLA program as TPU).
+"""Device match-pipeline tests (run on the CPU backend: the plain-XLA
+reference of the program the GPU runs).
 
 The contract under test mirrors the reference's producer contract
 (src/qatseqprod.h:85-95): any sequence set is acceptable iff it is
 frame-legal and byte-faithful; quality is measured separately as ratio.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,12 +18,14 @@ from qat_zstd_plugin_tpu.runtime import tpu_codec
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec, \
     coalesce_sequences
 
+REPO = Path(__file__).resolve().parents[1]
+
 N = 4096
 
 
 def _blocks(seed=0):
     rng = np.random.default_rng(seed)
-    words = [b"the ", b"data ", b"zstd tpu ", b"frame ", b"block entropy "]
+    words = [b"the ", b"data ", b"zstd gpu ", b"frame ", b"block entropy "]
     text = b""
     while len(text) < N:
         text += words[int(rng.integers(0, 5))]
@@ -94,7 +99,7 @@ def test_long_repeat_recovers_via_coalesce():
 @pytest.mark.skipif(not oracle.available(), reason="oracle missing")
 @pytest.mark.parametrize("level", [1, 9])
 def test_tpu_codec_end_to_end(level):
-    data = open("/root/repo/SURVEY.md", "rb").read()
+    data = open(REPO / "SURVEY.md", "rb").read()
     c = TpuCodec(level=level, batch=2, block_size=16384, max_seq=4096)
     f = c.compress(data, validate=True)
     assert oracle.roundtrip_ok(f, data)

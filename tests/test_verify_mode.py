@@ -9,12 +9,16 @@ frame. These tests inject deliberately WRONG device claims and require
 bit-exact output anyway.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from qat_zstd_plugin_tpu import native, oracle
 from qat_zstd_plugin_tpu.format.frame import BlockSequences
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
+
+REPO = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="verifier is the native runtime")
@@ -23,7 +27,7 @@ pytestmark = pytest.mark.skipif(not native.available(),
 @pytest.fixture()
 def corpus():
     rng = np.random.default_rng(3)
-    text = open("/root/repo/SURVEY.md", "rb").read()
+    text = open(REPO / "SURVEY.md", "rb").read()
     return (text + rng.integers(0, 256, 30000, np.uint8).tobytes()) * 2
 
 
